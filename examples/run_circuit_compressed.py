@@ -9,16 +9,14 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax
 
-# the f64 compressed store needs x64 buffers; demo on the CPU backend
-# (on TPU use r32 compressed, or the dense dd engine for r64 at speed)
-jax.config.update("jax_platforms", "cpu")
+# the f64 compressed store needs x64 buffers
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from pangulu_tpu.api import InitOptions, finalize, gssv, init
-from pangulu_tpu.models import circuit
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, finalize, gssv, init
+from pangulu_jax.models import circuit
+from pangulu_jax.utils.perf import residual_norm
 
 
 def main():

@@ -1,4 +1,4 @@
-// Native host-side runtime for pangulu_tpu.
+// Native host-side runtime for pangulu_jax.
 //
 // C++ implementations of the sequential, correctness-critical host
 // pipeline pieces whose Python versions do not scale: elimination

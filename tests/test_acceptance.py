@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from pangulu_tpu import cli
-from pangulu_tpu.api import InitOptions, finalize, gssv, gstrf, init
-from pangulu_tpu.io.mmio import write_matrix
-from pangulu_tpu.models import circuit
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax import cli
+from pangulu_jax.api import InitOptions, finalize, gssv, gstrf, init
+from pangulu_jax.io.mmio import write_matrix
+from pangulu_jax.models import circuit
+from pangulu_jax.utils.perf import residual_norm
 
 
 def test_circuit_matrix_requires_mc64():
@@ -86,7 +86,7 @@ def test_cli_missing_file_clean_error(capsys):
 
 
 def test_rhs_wrong_length_raises(tmp_path):
-    from pangulu_tpu.api import gstrs
+    from pangulu_jax.api import gstrs
 
     a = circuit(100, seed=7)
     h = init(a, InitOptions(nb=16, dtype="r64"))

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pangulu_tpu.api import InitOptions, finalize, gstrf, gstrs, init
-from pangulu_tpu.models import poisson2d
-from pangulu_tpu.utils.log import config_banner
+from pangulu_jax.api import InitOptions, finalize, gstrf, gstrs, init
+from pangulu_jax.models import poisson2d
+from pangulu_jax.utils.log import config_banner
 
 
 def test_gstrs_before_gstrf_raises():
@@ -48,8 +48,8 @@ def test_init_options_tol_is_honored():
     factorization visibly changes."""
     import numpy as np
 
-    from pangulu_tpu.api import InitOptions, finalize, gstrf, init
-    from pangulu_tpu.models import poisson2d
+    from pangulu_jax.api import InitOptions, finalize, gstrf, init
+    from pangulu_jax.models import poisson2d
 
     a = poisson2d(6)
     h1 = init(a, InitOptions(nb=8, dtype="r64"))
@@ -74,9 +74,9 @@ def test_r64_init_enables_x64_outside_tests():
     code = (
         "import jax; jax.config.update('jax_platforms','cpu')\n"
         "assert not jax.config.jax_enable_x64\n"
-        "from pangulu_tpu import Solver, InitOptions\n"
-        "from pangulu_tpu.models import trefethen\n"
-        "from pangulu_tpu.io.mmio import generated_rhs\n"
+        "from pangulu_jax import Solver, InitOptions\n"
+        "from pangulu_jax.models import trefethen\n"
+        "from pangulu_jax.io.mmio import generated_rhs\n"
         "import numpy as np\n"
         "a = trefethen(16)\n"
         "x = Solver(a, InitOptions(nb=8, dtype='r64'))"

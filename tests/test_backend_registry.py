@@ -7,12 +7,12 @@ import dataclasses
 
 import numpy as np
 
-from pangulu_tpu.api import InitOptions, init
-from pangulu_tpu.blocks import gather_factor
-from pangulu_tpu.models import poisson2d
-from pangulu_tpu.numeric import LUFactorizer
-from pangulu_tpu.ops.interface import get_backend, register_backend
-from pangulu_tpu.utils.perf import factorization_residual
+from pangulu_jax.api import InitOptions, init
+from pangulu_jax.blocks import gather_factor
+from pangulu_jax.models import poisson2d
+from pangulu_jax.numeric import LUFactorizer
+from pangulu_jax.ops.interface import get_backend, register_backend
+from pangulu_jax.utils.perf import factorization_residual
 
 
 def test_custom_backend_registers_and_runs():

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from pangulu_tpu import cli
-from pangulu_tpu.io.mmio import write_matrix
-from pangulu_tpu.models import poisson2d
+from pangulu_jax import cli
+from pangulu_jax.io.mmio import write_matrix
+from pangulu_jax.models import poisson2d
 
 
 def _write_fixture(tmp_path):
@@ -53,13 +53,13 @@ def test_cli_load_factor_uses_checkpoint_dtype(tmp_path, capsys):
 
 
 def test_cli_load_factor_complex_embedded(tmp_path, capsys):
-    """--load-factor on a complex-embedded checkpoint (the TPU default
-    for cr32/cr64): a_origin is the 2n real embedding — the rhs and
+    """--load-factor on a complex-embedded checkpoint
+    (complex_mode="embed"): a_origin is the 2n real embedding — the rhs and
     residual must be built for the ORIGINAL complex system."""
     import scipy.sparse as sp
 
-    from pangulu_tpu.api import InitOptions, finalize, gstrf, init
-    from pangulu_tpu.io.checkpoint import save_factor
+    from pangulu_jax.api import InitOptions, finalize, gstrf, init
+    from pangulu_jax.io.checkpoint import save_factor
 
     rng = np.random.default_rng(7)
     n = 40

@@ -5,16 +5,16 @@ for XLA: O(fill) HBM, identical numerics."""
 import numpy as np
 import pytest
 
-from pangulu_tpu.api import InitOptions, finalize, gssv, gstrf, gstrs, init
-from pangulu_tpu.blocks import tile_matrix
-from pangulu_tpu.compressed import CompressedLU, CompressedTiles
-from pangulu_tpu.io.mmio import generated_rhs
-from pangulu_tpu.models import circuit, poisson2d, smallworld
-from pangulu_tpu.numeric import LUFactorizer
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import build_schedule
-from pangulu_tpu.symbolic import symbolic
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, finalize, gssv, gstrf, gstrs, init
+from pangulu_jax.blocks import tile_matrix
+from pangulu_jax.compressed import CompressedLU, CompressedTiles
+from pangulu_jax.io.mmio import generated_rhs
+from pangulu_jax.models import circuit, poisson2d, smallworld
+from pangulu_jax.numeric import LUFactorizer
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import build_schedule
+from pangulu_jax.symbolic import symbolic
+from pangulu_jax.utils.perf import residual_norm
 
 
 def _problem(a, nb, ordering="rcm"):
@@ -87,14 +87,14 @@ def test_compressed_refactorize_fast_path():
                             tile_storage="compressed"))
     b = generated_rhs(a)
     x1 = gssv(h, b)
-    from pangulu_tpu.utils.perf import residual_norm as rn
+    from pangulu_jax.utils.perf import residual_norm as rn
 
     assert rn(s, x1, b) < 1e-9
     store1 = h._comp_store
     assert store1 is not None
     s2 = s.copy()
     s2.data = s2.data * (1.0 + 0.05 * np.sin(np.arange(s2.nnz)))
-    from pangulu_tpu.api import update_values
+    from pangulu_jax.api import update_values
 
     update_values(h, s2)
     gstrf(h)
@@ -145,7 +145,7 @@ def test_compressed_rejects_mesh():
 def test_compressed_checkpoint_roundtrip(tmp_path):
     """Compressed factors checkpoint as values+u16 slots (O(fill), not
     dense) and reload solve-ready."""
-    from pangulu_tpu.io.checkpoint import load_factor, save_factor
+    from pangulu_jax.io.checkpoint import load_factor, save_factor
 
     a = circuit(700, seed=8)
     b = generated_rhs(a)
@@ -157,13 +157,13 @@ def test_compressed_checkpoint_roundtrip(tmp_path):
     finalize(h)
     h3 = load_factor(p_comp)
     # the loaded factor is the O(fill) store, NOT densified tiles
-    from pangulu_tpu.compressed import CompressedTiles
+    from pangulu_jax.compressed import CompressedTiles
 
     assert isinstance(h3.factor_tiles, CompressedTiles)
     assert (h3.factor_tiles.compressed_bytes
             < h3.factor_tiles.dense_bytes)
     x = gstrs(h3, b)
-    from pangulu_tpu.utils.perf import residual_norm as _rn
+    from pangulu_jax.utils.perf import residual_norm as _rn
 
     assert _rn(a.to_scipy(), x, b) < 1e-6
     np.testing.assert_allclose(x, x_ref, rtol=1e-8, atol=1e-8)

@@ -1,8 +1,7 @@
-"""Double-float (dd) arithmetic and the r64-on-TPU engine (ops/dd.py,
-numeric dispatch="dd"): f64-class results from f32-only device math.
-On the CPU test backend the error-free transforms take the exact-f64
-path; the engine structure (slicing, dd matmuls, dd LU, dd solve) is
-identical to what runs on the TPU."""
+"""Double-float (dd) arithmetic and the dd engines (ops/dd.py, numeric
+dispatch="dd"/"dd_group", explicit request only): f64-class results
+from f32 device math.  The engine structure (slicing, dd matmuls, dd
+LU, dd solve) is the same on every platform."""
 
 import functools
 
@@ -11,16 +10,16 @@ import pytest
 
 import jax
 
-from pangulu_tpu.blocks import gather_factor, tile_matrix
-from pangulu_tpu.io.mmio import generated_rhs
-from pangulu_tpu.models import poisson2d, smallworld
-from pangulu_tpu.numeric import DdTiles, LUFactorizer
-from pangulu_tpu.ops import dd as D
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import build_schedule
-from pangulu_tpu.sptrsv import TriangularSolver
-from pangulu_tpu.symbolic import symbolic
-from pangulu_tpu.utils.perf import factorization_residual, residual_norm
+from pangulu_jax.blocks import gather_factor, tile_matrix
+from pangulu_jax.io.mmio import generated_rhs
+from pangulu_jax.models import poisson2d, smallworld
+from pangulu_jax.numeric import DdTiles, LUFactorizer
+from pangulu_jax.ops import dd as D
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import build_schedule
+from pangulu_jax.sptrsv import TriangularSolver
+from pangulu_jax.symbolic import symbolic
+from pangulu_jax.utils.perf import factorization_residual, residual_norm
 
 
 def test_dd_roundtrip_and_add_mul():
@@ -135,7 +134,7 @@ def test_dd_matches_f64_engine():
 def test_dd_ir_solve_matches_pure_dd():
     """The device-fused IR solve (default) and the all-dd fused solve
     must both reach f64-class residuals; IR is the fast path (one f32
-    mega/inv solve + dd residual per round, no level-latency chain)."""
+    inverse solve + dd residual per round, no level-latency chain)."""
     a = smallworld(12, seed=5)
     ro, blocked, schedule = _problem(a, 16)
     fac = LUFactorizer(blocked, schedule, dispatch="dd")
@@ -193,28 +192,10 @@ def test_dd_blocked_residual_exact():
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
 
-def test_dd_scan_pallas_matches_xla():
-    """Interpret-mode Pallas dd LU scan pinned against the XLA path
-    (on TPU the compiled kernel replaces the latency-bound XLA loop)."""
-    from pangulu_tpu.ops.dd import _dd_scan_math, dd_lu_scan_pallas
-
-    rng = np.random.default_rng(7)
-    nb = 16
-    a = rng.standard_normal((nb, nb)) + np.eye(nb) * 5
-    ah, al = D.dd(a)
-    fh1, fl1 = dd_lu_scan_pallas(ah, al, nb=nb, tol=1e-30)
-    fh2, fl2 = _dd_scan_math(ah, al, nb=nb, tol=1e-30)
-    np.testing.assert_allclose(np.asarray(fh1), np.asarray(fh2),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(
-        D.dd_to_f64(fh1, fl1), D.dd_to_f64(fh2, fl2),
-        rtol=1e-13, atol=1e-13)
-
-
 def _nd_problem(nb=8, nx=12):
     """ND-ordered fixture with real super-level compression (multiple
     same-depth columns per group)."""
-    from pangulu_tpu.models import poisson2d as _p2d
+    from pangulu_jax.models import poisson2d as _p2d
 
     a = _p2d(nx)
     ro = reorder(a, ordering="nd", nb=nb)
@@ -288,106 +269,3 @@ def test_dd_group_engine_matches_dd():
     w = ts.solve(tiles2, ro.transform_b(b))
     x = ro.transform_x(w)
     assert residual_norm(a.to_scipy(), x, b) < 1e-12
-
-
-@pytest.mark.slow
-def test_dd_ir_solve_grouped_correction_matches():
-    """The dd IR solve with the batched-group Pallas correction
-    (interpret mode here; TPU-gated in production) must reach the same
-    f64-class residual as the per-level correction path."""
-    import jax.numpy as jnp
-
-    from pangulu_tpu.schedule import bucket
-    from pangulu_tpu.sptrsv import TriangularSolver, _dd_ir_solve
-
-    a, ro, blocked, schedule = _nd_problem(nb=16, nx=12)
-    fac = LUFactorizer(blocked, schedule, dispatch="dd_group")
-    tiles = fac.factorize()
-    ts = TriangularSolver(blocked, schedule, inv_tiles=fac.inv_tiles)
-    assert ts._solve_group_worthwhile()
-    st = ts._ensure_dd_ir_state()
-    a_th, a_tl, row_ids, row_cols, fused, mega, npan = st[:7]
-    l_ids, l_rows, uc_ids, uc_rows = fused
-    gt = schedule.group_solve_tables(blocked.num_tiles)
-    ggeo = (gt.pop("ngroups"), gt.pop("gmax"), gt.pop("row_w"))
-    gtabs = {k: jnp.asarray(v) for k, v in gt.items()}
-    bl, nb = schedule.block_length, blocked.nb
-    b = np.asarray(ro.reordered.to_scipy() @ np.ones(a.n))
-    xb = np.zeros((bl + 1, nb, 1))
-    xb[:bl].reshape(bl * nb, 1)[: a.n] = b[:, None]
-    xh = xb.astype(np.float32)
-    xl = (xb - xh.astype(np.float64)).astype(np.float32)
-    invh, _ = fac.inv_tiles
-    oh, ol = _dd_ir_solve(
-        jnp.asarray(xh), jnp.asarray(xl), a_th, a_tl, tiles.hi, invh,
-        row_ids, row_cols, l_ids, l_rows, uc_ids, uc_rows,
-        mega["nl_tab"], mega["nuc_tab"], mega["lid_tab"],
-        mega["lrow_tab"], mega["ucid_tab"], mega["ucrow_tab"],
-        gtabs, nb=nb, bl=bl, npan=npan, iters=3, use_mega=True,
-        ggeo=ggeo)
-    x = (np.asarray(oh).astype(np.float64)
-         + np.asarray(ol).astype(np.float64))
-    x = x[:bl].reshape(bl * nb, 1)[: a.n, 0]
-    from pangulu_tpu.utils.perf import residual_norm as _rn
-
-    assert _rn(ro.reordered.to_scipy(), x, b) < 1e-12
-
-
-def test_dd_mega_matches_dd_engine():
-    """The single-launch dd mega kernel (kernels_pallas_dd, interpret
-    mode here) must match the XLA dd engine to dd rounding and produce
-    dd-accurate triangle inverses."""
-    a = poisson2d(12)
-    ro, blocked, schedule = _problem(a, 16)
-    t_dd = np.asarray(LUFactorizer(blocked, schedule,
-                                   dispatch="dd").factorize())
-    fac = LUFactorizer(blocked, schedule, dispatch="dd_mega")
-    tiles = fac.factorize()
-    assert isinstance(tiles, DdTiles)
-    nt = blocked.num_tiles
-    t_mega = np.asarray(tiles)
-    np.testing.assert_allclose(t_mega[:nt], t_dd[:nt],
-                               rtol=1e-13, atol=1e-13)
-    # inverse quality at every level: dd-class ||inv(T) T - I||
-    ih, il = (np.asarray(x, dtype=np.float64) for x in fac.inv_tiles)
-    nb = blocked.nb
-    for k, lev in enumerate(schedule.levels):
-        d = t_mega[lev.diag]
-        lmat = np.tril(d, -1) + np.eye(nb)
-        umat = np.triu(d)
-        li = ih[k, 0] + il[k, 0]
-        ui = ih[k, 1] + il[k, 1]
-        assert np.max(np.abs(li @ lmat - np.eye(nb))) < 1e-12
-        assert np.max(np.abs(ui @ umat - np.eye(nb))) < 1e-12
-
-
-def test_dd_mega_end_to_end_solve():
-    """dd_mega factors + the dd solve reach f64-class residuals."""
-    a = smallworld(12)
-    ro, blocked, schedule = _problem(a, 16)
-    fac = LUFactorizer(blocked, schedule, dispatch="dd_mega")
-    tiles = fac.factorize()
-    ts = TriangularSolver(blocked, schedule, inv_tiles=fac.inv_tiles)
-    b = generated_rhs(a)
-    w = ts.solve(tiles, ro.transform_b(b))
-    x = ro.transform_x(w)
-    assert residual_norm(a.to_scipy(), x, b) < 1e-12
-
-
-@pytest.mark.slow
-def test_dd_mega_multichunk_panels():
-    """A level wider than the dd panel chunk (pch) exercises the
-    chunked panel loop and the Schur chunk-reload path."""
-    a = smallworld(20, seed=2)
-    ro, blocked, schedule = _problem(a, 16)
-    t_dd = np.asarray(LUFactorizer(blocked, schedule,
-                                   dispatch="dd").factorize())
-    # force tiny chunks so multi-chunk paths engage even on a small
-    # problem: rebuild the tables with pch=2, uch=8
-    fac = LUFactorizer(blocked, schedule, dispatch="dd_mega")
-    fac._mega = schedule.mega_tables(blocked.num_tiles, uch=8,
-                                     max_pch=2)
-    tiles = fac.factorize()
-    nt = blocked.num_tiles
-    np.testing.assert_allclose(np.asarray(tiles)[:nt], t_dd[:nt],
-                               rtol=1e-13, atol=1e-13)

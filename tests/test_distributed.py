@@ -6,17 +6,17 @@ import jax
 import numpy as np
 import pytest
 
-from pangulu_tpu.blocks import tile_matrix
-from pangulu_tpu.io.mmio import generated_rhs
-from pangulu_tpu.models import poisson2d, trefethen
-from pangulu_tpu.numeric import LUFactorizer
-from pangulu_tpu.parallel.dist_numeric import DistributedLU
-from pangulu_tpu.parallel.mesh import grid_shape, make_mesh
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import build_schedule
-from pangulu_tpu.sptrsv import TriangularSolver
-from pangulu_tpu.symbolic import symbolic
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.blocks import tile_matrix
+from pangulu_jax.io.mmio import generated_rhs
+from pangulu_jax.models import poisson2d, trefethen
+from pangulu_jax.numeric import LUFactorizer
+from pangulu_jax.parallel.dist_numeric import DistributedLU
+from pangulu_jax.parallel.mesh import grid_shape, make_mesh
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import build_schedule
+from pangulu_jax.sptrsv import TriangularSolver
+from pangulu_jax.symbolic import symbolic
+from pangulu_jax.utils.perf import residual_norm
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs >=4 virtual devices")
@@ -69,7 +69,7 @@ def test_distributed_factor_check_matches_gathered():
     """factor_check_vector (on-mesh psum check, no gather) must equal
     the gathered L(U*1) to roundoff, and api check=True on a mesh must
     record a tiny gstrf_residual through this path."""
-    from pangulu_tpu.blocks import gather_factor
+    from pangulu_jax.blocks import gather_factor
 
     a, ro, blocked, schedule = _problem(nb=8, nx=8)
     mesh = make_mesh(4)
@@ -80,7 +80,7 @@ def test_distributed_factor_check_matches_gathered():
     ref = lmat @ (umat @ np.ones(blocked.n))
     np.testing.assert_allclose(w, ref, rtol=1e-12, atol=1e-12)
 
-    from pangulu_tpu.api import InitOptions, Solver
+    from pangulu_jax.api import InitOptions, Solver
 
     s = Solver(a, InitOptions(nb=8, dtype="r64", mesh_shape=(2, 2),
                               check=True))
@@ -91,7 +91,7 @@ def test_distributed_factor_check_matches_gathered():
 
 
 def test_api_mesh_shape():
-    from pangulu_tpu.api import InitOptions, Solver
+    from pangulu_jax.api import InitOptions, Solver
 
     a = trefethen(20)
     b = generated_rhs(a)
@@ -101,8 +101,8 @@ def test_api_mesh_shape():
 
 
 def test_distributed_sptrsv_matches_single_chip():
-    from pangulu_tpu.parallel.dist_sptrsv import DistributedTriangularSolver
-    from pangulu_tpu.sptrsv import TriangularSolver
+    from pangulu_jax.parallel.dist_sptrsv import DistributedTriangularSolver
+    from pangulu_jax.sptrsv import TriangularSolver
 
     a, ro, blocked, schedule = _problem(nb=8, nx=6)
     mesh = make_mesh(4)
@@ -111,7 +111,7 @@ def test_distributed_sptrsv_matches_single_chip():
     bt = ro.transform_b(generated_rhs(a))
     dts = DistributedTriangularSolver(blocked, schedule, dist.layout, mesh)
     w_dist = dts.solve(dist.dist_tiles, bt)
-    from pangulu_tpu.blocks import gather_factor  # noqa: F401
+    from pangulu_jax.blocks import gather_factor  # noqa: F401
     single_tiles = np.asarray(LUFactorizer(blocked, schedule).factorize())
     ts = TriangularSolver(blocked, schedule)
     w_single = ts.solve(single_tiles, bt)
@@ -119,7 +119,7 @@ def test_distributed_sptrsv_matches_single_chip():
 
 
 def test_distributed_sptrsv_multi_rhs():
-    from pangulu_tpu.parallel.dist_sptrsv import DistributedTriangularSolver
+    from pangulu_jax.parallel.dist_sptrsv import DistributedTriangularSolver
 
     a, ro, blocked, schedule = _problem(nb=8, nx=5)
     mesh = make_mesh(8)
@@ -137,9 +137,9 @@ def test_dist_non_square_mesh():
     """(1, 2) grid: the reference's p*q rule for 2 ranks."""
     import jax
 
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init
-    from pangulu_tpu.models import poisson2d
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init
+    from pangulu_jax.models import poisson2d
+    from pangulu_jax.utils.perf import residual_norm
 
     a = poisson2d(10)
     h = init(a, InitOptions(nb=16, dtype="r64", mesh_shape=(1, 2)))
@@ -152,10 +152,10 @@ def test_dist_non_square_mesh():
 def test_dist_refactorize_cycle():
     """update_values + gstrf + gstrs across a mesh: distributed state
     (layout, solver, sharded tiles) must rebuild cleanly per cycle."""
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init, \
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init, \
         update_values
-    from pangulu_tpu.models import poisson2d
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.models import poisson2d
+    from pangulu_jax.utils.perf import residual_norm
 
     a = poisson2d(10)
     s = a.to_scipy()
@@ -180,19 +180,19 @@ def test_dist_refactorize_cycle():
 
 @pytest.mark.slow
 def test_dist_dd_matches_f64_engine(monkeypatch):
-    """The DOUBLE-FLOAT distributed engine (r64 multi-chip on TPU,
-    judge r4 missing #1), forced on the CPU mesh via
-    PANGULU_TPU_DIST_DD=1, must match the native-f64 collective engine
+    """The DOUBLE-FLOAT distributed engine, requested on the CPU mesh
+    via
+    PANGULU_DIST_DD=1, must match the native-f64 collective engine
     to <= 1e-12 and solve end-to-end through the dd distributed
     SpTRSV."""
     a, ro, blocked, schedule = _problem(nb=16, nx=10)
     mesh = make_mesh(8)
     ref = DistributedLU(blocked, schedule, mesh.devices.shape,
                         mesh=mesh)
-    assert not ref.dd  # auto gate: dd only on TPU backends
+    assert not ref.dd  # dd runs only on explicit request
     t_ref = ref.factorize()
 
-    monkeypatch.setenv("PANGULU_TPU_DIST_DD", "1")
+    monkeypatch.setenv("PANGULU_DIST_DD", "1")
     ddlu = DistributedLU(blocked, schedule, mesh.devices.shape,
                          mesh=mesh)
     assert ddlu.dd
@@ -203,7 +203,7 @@ def test_dist_dd_matches_f64_engine(monkeypatch):
     assert ddlu.inv_dd is not None
 
     # dd distributed solve end-to-end (exact all_gather+dd reduction)
-    from pangulu_tpu.parallel.dist_sptrsv import (
+    from pangulu_jax.parallel.dist_sptrsv import (
         DistributedTriangularSolver,
     )
 
@@ -225,11 +225,11 @@ def test_dist_dd_api_end_to_end(monkeypatch):
     """r64 mesh through the public API with the dd engine forced:
     init/gstrf/gstrs (+check), then an update_values refactorize
     reusing the dd executor."""
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init, \
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init, \
         update_values
-    from pangulu_tpu.models import random_unsymmetric
+    from pangulu_jax.models import random_unsymmetric
 
-    monkeypatch.setenv("PANGULU_TPU_DIST_DD", "1")
+    monkeypatch.setenv("PANGULU_DIST_DD", "1")
     a = random_unsymmetric(150, 0.05, seed=3)
     s = a.to_scipy()
     h = init(a, InitOptions(nb=16, dtype="r64", mesh_shape=(2, 4),
@@ -256,10 +256,10 @@ def test_dist_dd_api_end_to_end(monkeypatch):
 def test_dist_dd_cr64_embed(monkeypatch):
     """cr64 on a mesh via the real 2x2 embedding + dd engine (judge r4
     stretch #9: closes the multi-chip value-type matrix)."""
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init
-    from pangulu_tpu.models import random_unsymmetric
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init
+    from pangulu_jax.models import random_unsymmetric
 
-    monkeypatch.setenv("PANGULU_TPU_DIST_DD", "1")
+    monkeypatch.setenv("PANGULU_DIST_DD", "1")
     a = random_unsymmetric(80, 0.06, seed=9, dtype=np.complex128)
     b = np.asarray(a.to_scipy() @ (np.ones(a.n) + 0.5j))
     h = init(a, InitOptions(nb=16, dtype="cr64", complex_mode="embed",
@@ -272,9 +272,9 @@ def test_dist_dd_cr64_embed(monkeypatch):
 
 def test_dist_complex_embedding():
     """Complex dtype via the real 2x2 embedding over a 2x2 mesh."""
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init
-    from pangulu_tpu.models import random_unsymmetric
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init
+    from pangulu_jax.models import random_unsymmetric
+    from pangulu_jax.utils.perf import residual_norm
 
     a = random_unsymmetric(80, 0.06, seed=9, dtype=np.complex128)
     b = np.asarray(a.to_scipy() @ (np.ones(a.n) + 0.5j))
@@ -302,7 +302,7 @@ def test_dist_1x1_delegates_to_single_chip():
                                t_slow[: blocked.num_tiles],
                                rtol=1e-12, atol=1e-12)
     # end-to-end API path on a 1x1 mesh
-    from pangulu_tpu.api import InitOptions, gstrf, gstrs, init
+    from pangulu_jax.api import InitOptions, gstrf, gstrs, init
 
     h = init(a, InitOptions(nb=8, dtype="r64", mesh_shape=(1, 1)))
     gstrf(h)
@@ -314,7 +314,7 @@ def test_dist_1x1_delegates_to_single_chip():
 def test_dist_segmented_tables_match_reference_construction():
     """The vectorized segment builder must place every panel/update on
     the owner device the reference rule dictates (PANGULU_CALC_RANK)."""
-    from pangulu_tpu.parallel.dist_numeric import build_layout
+    from pangulu_jax.parallel.dist_numeric import build_layout
 
     a, ro, blocked, schedule = _problem(nb=8, nx=7)
     p, q = 2, 2
@@ -375,8 +375,8 @@ def test_dist_table_construction_at_scale():
     thousands of tiles) in seconds, not minutes."""
     import time
 
-    from pangulu_tpu.models import poisson3d
-    from pangulu_tpu.parallel.dist_numeric import DistributedLU, \
+    from pangulu_jax.models import poisson3d
+    from pangulu_jax.parallel.dist_numeric import DistributedLU, \
         build_layout
 
     a = poisson3d(48)  # n = 110592
@@ -426,7 +426,7 @@ def test_distributed_superlevel_groups_match_single_chip(ndev):
                                rtol=1e-12, atol=1e-12)
     # grouped distributed solve (two [G,nb,nrhs] psums per group) on
     # the same compressing schedule — must reach f64-class residuals
-    from pangulu_tpu.parallel.dist_sptrsv import (
+    from pangulu_jax.parallel.dist_sptrsv import (
         DistributedTriangularSolver,
     )
 
@@ -455,7 +455,7 @@ def test_dist_lookahead_critical_tables():
     dist = DistributedLU(blocked, schedule, mesh.devices.shape,
                          mesh=mesh)
     # diag tile -> group index
-    from pangulu_tpu.schedule import bucket  # noqa: F401
+    from pangulu_jax.schedule import bucket  # noqa: F401
 
     lev_grp = {}
     gi = 0
@@ -522,7 +522,7 @@ def test_dist_collective_count_per_group():
     ngroups = sum(kmat.shape[0] for kmat, _, _, _ in dist._segments)
     assert ngroups < schedule.block_length, "no grouping happened"
     from jax.sharding import NamedSharding, PartitionSpec
-    from pangulu_tpu.parallel.multihost import put_replicated
+    from pangulu_jax.parallel.multihost import put_replicated
 
     kmat, (l_mem, u_mem), tables, step = dist._segments[0]
     tiles0 = jax.device_put(

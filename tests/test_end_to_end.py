@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from pangulu_tpu.api import InitOptions, Solver, finalize, gssv, gstrf, gstrs, init
-from pangulu_tpu.io.mmio import generated_rhs
-from pangulu_tpu.models import arrowhead, poisson2d, random_unsymmetric, trefethen
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, Solver, finalize, gssv, gstrf, gstrs, init
+from pangulu_jax.io.mmio import generated_rhs
+from pangulu_jax.models import arrowhead, poisson2d, random_unsymmetric, trefethen
+from pangulu_jax.utils.perf import residual_norm
 
 TOL = {"r32": 2e-4, "r64": 1e-10, "cr32": 5e-4, "cr64": 1e-10}
 
@@ -109,12 +109,12 @@ def test_nb_not_dividing_n():
 
 
 def test_trsm_panel_solve_variant():
-    from pangulu_tpu.blocks import tile_matrix
-    from pangulu_tpu.numeric import LUFactorizer
-    from pangulu_tpu.reorder import reorder
-    from pangulu_tpu.schedule import build_schedule
-    from pangulu_tpu.sptrsv import TriangularSolver
-    from pangulu_tpu.symbolic import symbolic
+    from pangulu_jax.blocks import tile_matrix
+    from pangulu_jax.numeric import LUFactorizer
+    from pangulu_jax.reorder import reorder
+    from pangulu_jax.schedule import build_schedule
+    from pangulu_jax.sptrsv import TriangularSolver
+    from pangulu_jax.symbolic import symbolic
 
     a = trefethen(20)
     ro = reorder(a)
@@ -134,7 +134,7 @@ def test_smallworld_irregular():
     """Irregular structure (grid + scattered long-range couplings) —
     the SuiteSparse-circuit-class stand-in; exercises auto ordering and
     wider, raggeder elimination levels."""
-    from pangulu_tpu.models import smallworld
+    from pangulu_jax.models import smallworld
 
     a = smallworld(16, long_range=0.08, seed=3)
     b = np.asarray(a.to_scipy() @ np.ones(a.n))
@@ -143,13 +143,13 @@ def test_smallworld_irregular():
 
 
 def test_complex_embedding_matches_native():
-    """cr64 via the real 2x2 embedding (the TPU fast-path strategy)
+    """cr64 via the real 2x2 embedding (complex_mode="embed")
     must match the native complex solve."""
     a = random_unsymmetric(60, 0.07, dtype=np.complex128, seed=9)
     b = np.asarray(a.to_scipy() @ (np.ones(a.n) + 0.5j))
     x_native = _solve_and_check(
         a, InitOptions(nb=16, dtype="cr64", complex_mode="native"), rhs=b)
-    from pangulu_tpu.api import finalize, gstrf, gstrs, init
+    from pangulu_jax.api import finalize, gstrf, gstrs, init
 
     h = init(a, InitOptions(nb=16, dtype="cr64", complex_mode="embed"))
     assert h.complex_embed is not None
@@ -158,28 +158,28 @@ def test_complex_embedding_matches_native():
     x_emb = gstrs(h, b)
     assert np.iscomplexobj(x_emb)
     np.testing.assert_allclose(x_emb, x_native, rtol=1e-9, atol=1e-9)
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.utils.perf import residual_norm
 
     assert residual_norm(a.to_scipy(), x_emb, b) < 1e-10
     finalize(h)
 
 
 def test_spsolve_oneliner():
-    import pangulu_tpu
+    import pangulu_jax
 
     a = random_unsymmetric(70, 0.08, seed=2)
     b = np.asarray(a.to_scipy() @ np.ones(a.n))
-    x = pangulu_tpu.spsolve(a, b, nb=16, dtype="r64")
-    from pangulu_tpu.utils.perf import residual_norm
+    x = pangulu_jax.spsolve(a, b, nb=16, dtype="r64")
+    from pangulu_jax.utils.perf import residual_norm
 
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
 
 
 def test_analyze():
-    import pangulu_tpu
+    import pangulu_jax
 
     a = poisson2d(12)
-    info = pangulu_tpu.analyze(a, InitOptions(nb=16, dtype="r32"))
+    info = pangulu_jax.analyze(a, InitOptions(nb=16, dtype="r32"))
     assert info["n"] == a.n
     assert info["tiles"] > 0 and info["flops"] > 0
     assert info["factor_hbm_bytes"] == (info["tiles"] + 1) * 16 * 16 * 4

@@ -16,9 +16,9 @@ import sys
 import numpy as np
 import pytest
 
-from pangulu_tpu.api import InitOptions, finalize, gstrf, gstrs, init
-from pangulu_tpu.io.mmio import generated_rhs, read_matrix
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, finalize, gstrf, gstrs, init
+from pangulu_jax.io.mmio import generated_rhs, read_matrix
+from pangulu_jax.utils.perf import residual_norm
 
 REF_MTX = "/root/reference/examples/Trefethen_20b.mtx"
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -48,7 +48,7 @@ def test_reference_fixture_from_disk():
 def test_reference_fixture_matches_generator():
     """The generated trefethen(20) twin must equal the on-disk fixture
     exactly (values are small integers/primes)."""
-    from pangulu_tpu.models import trefethen
+    from pangulu_jax.models import trefethen
 
     disk = read_matrix(REF_MTX, dtype=np.float64).to_scipy()
     gen = trefethen(20).to_scipy()
@@ -62,7 +62,7 @@ def test_reference_fixture_through_cli(tmp_path):
     disk, nb=10, --check — the two acceptance residuals printed and
     exit 0."""
     out = subprocess.run(
-        [sys.executable, "-m", "pangulu_tpu.cli", "-f", REF_MTX,
+        [sys.executable, "-m", "pangulu_jax.cli", "-f", REF_MTX,
          "-nb", "10", "--dtype", "r64", "--check", "--platform", "cpu"],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -3,13 +3,13 @@
 import numpy as np
 import scipy.sparse as sp
 
-from pangulu_tpu.blocks import gather_factor, tile_matrix
-from pangulu_tpu.io.mmio import generated_rhs, read_matrix, write_matrix
-from pangulu_tpu.models import poisson2d, trefethen
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import bucket, build_schedule
-from pangulu_tpu.sparse import CscMatrix, add_diagonal_elements
-from pangulu_tpu.symbolic import symbolic
+from pangulu_jax.blocks import gather_factor, tile_matrix
+from pangulu_jax.io.mmio import generated_rhs, read_matrix, write_matrix
+from pangulu_jax.models import poisson2d, trefethen
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import bucket, build_schedule
+from pangulu_jax.sparse import CscMatrix, add_diagonal_elements
+from pangulu_jax.symbolic import symbolic
 
 
 def test_trefethen_matches_reference_fixture():
@@ -61,7 +61,7 @@ def test_tile_matrix_fallback_above_dense_lookup():
     """tile_matrix at bl > _DENSE_LOOKUP_MAX_BL must use the batched
     searchsorted path and still scatter correctly (the old per-element
     Python loop was O(nnz) interpreter work and never yielded -1)."""
-    import pangulu_tpu.blocks as blocks_mod
+    import pangulu_jax.blocks as blocks_mod
 
     a = poisson2d(12)
     ro = reorder(a, ordering="natural", mc64=False)
@@ -132,8 +132,8 @@ def test_generated_rhs_is_row_sums():
 
 
 def test_npz_matrix_roundtrip(tmp_path):
-    from pangulu_tpu.io.mmio import read_matrix, write_matrix
-    from pangulu_tpu.models import poisson2d
+    from pangulu_jax.io.mmio import read_matrix, write_matrix
+    from pangulu_jax.models import poisson2d
 
     a = poisson2d(9)
     p = tmp_path / "m.npz"
@@ -146,7 +146,7 @@ def test_rejects_non_square():
     import pytest
     import scipy.sparse as sp
 
-    from pangulu_tpu.api import InitOptions, init
+    from pangulu_jax.api import InitOptions, init
 
     with pytest.raises(ValueError, match="square"):
         init(sp.random(5, 7, density=0.5, format="csc"),
@@ -156,7 +156,7 @@ def test_rejects_non_square():
 def test_rhs_length_mismatch(tmp_path):
     import pytest
 
-    from pangulu_tpu.io.mmio import read_rhs
+    from pangulu_jax.io.mmio import read_rhs
 
     p = tmp_path / "b.txt"
     np.savetxt(p, np.ones(5))
@@ -168,7 +168,7 @@ def test_lid_roundtrip(tmp_path):
     """Binary .lid CSR format (reference: examples/example.c:100-164):
     u32 m,n + u64 nnz header, u64 rowptr, u32 colidx (0-based), raw
     values."""
-    from pangulu_tpu.io.mmio import read_matrix, write_matrix
+    from pangulu_jax.io.mmio import read_matrix, write_matrix
 
     a = poisson2d(9)
     p = tmp_path / "m.lid"
@@ -205,7 +205,7 @@ def test_lid_roundtrip(tmp_path):
 def test_cli_solves_lid_same_as_mtx(tmp_path, capsys):
     """The CLI must solve a .lid matrix with the same residual as its
     .mtx twin (reference example ingests both, example.c:100-164)."""
-    from pangulu_tpu.cli import main
+    from pangulu_jax.cli import main
 
     a = poisson2d(8)
     write_matrix(tmp_path / "m.mtx", a)
@@ -225,8 +225,8 @@ def test_read_mtx_gz(tmp_path):
     import gzip
     import shutil
 
-    from pangulu_tpu.io.mmio import read_matrix, write_matrix
-    from pangulu_tpu.models import poisson2d
+    from pangulu_jax.io.mmio import read_matrix, write_matrix
+    from pangulu_jax.models import poisson2d
 
     a = poisson2d(7)
     p = tmp_path / "m.mtx"
@@ -239,7 +239,7 @@ def test_read_mtx_gz(tmp_path):
 
 
 def test_read_rhs_binary(tmp_path):
-    from pangulu_tpu.io.mmio import read_rhs
+    from pangulu_jax.io.mmio import read_rhs
 
     b = np.arange(9.0)
     np.save(tmp_path / "b.npy", b)
@@ -253,7 +253,7 @@ def test_read_rhs_binary(tmp_path):
 def test_perf_to_dict():
     import json
 
-    from pangulu_tpu.utils.perf import PerfCounters
+    from pangulu_jax.utils.perf import PerfCounters
 
     p = PerfCounters()
     with p.phase("numeric"):

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pangulu_tpu.ops import kernels_jax as _K
+from pangulu_jax.ops import kernels_jax as _K
 
 NB = 32
 

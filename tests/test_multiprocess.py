@@ -52,7 +52,7 @@ def test_distributed_init_strict_raises():
     code = (
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from pangulu_tpu.parallel import multihost\n"
+        "from pangulu_jax.parallel import multihost\n"
         "try:\n"
         "    # num_processes without a process_id is undiscoverable\n"
         "    # outside a cluster env -> ValueError from jax\n"

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from pangulu_tpu import native
-from pangulu_tpu.models import poisson2d, random_unsymmetric, trefethen
-from pangulu_tpu.sparse import CscMatrix, symmetrize_pattern
+from pangulu_jax import native
+from pangulu_jax.models import poisson2d, random_unsymmetric, trefethen
+from pangulu_jax.sparse import CscMatrix, symmetrize_pattern
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native lib unavailable")
@@ -52,7 +52,7 @@ def test_fill_walk_parity():
     count, mark = native.fill_walk(a.n, csr.indptr, csr.indices, parent,
                                    nb, bl)
     # python reference
-    from pangulu_tpu.symbolic import _fill_walk
+    from pangulu_jax.symbolic import _fill_walk
 
     pmark = np.zeros((bl, bl), dtype=bool)
     visited = np.full(a.n, -1, dtype=np.int64)
@@ -77,7 +77,7 @@ def test_fill_walk_parity():
 
 
 def test_mindeg_is_valid_permutation_and_reduces_fill():
-    from pangulu_tpu.models import arrowhead
+    from pangulu_jax.models import arrowhead
     import scipy.sparse.linalg as spla
 
     a = arrowhead(80)
@@ -143,9 +143,9 @@ def test_native_mmio_reader(tmp_path):
     import scipy.io
     import scipy.sparse as sp
 
-    from pangulu_tpu.io.mmio import _read_mtx_native, read_matrix, \
+    from pangulu_jax.io.mmio import _read_mtx_native, read_matrix, \
         write_matrix
-    from pangulu_tpu.models import random_unsymmetric
+    from pangulu_jax.models import random_unsymmetric
 
     a = random_unsymmetric(120, 0.05, seed=4)
     p = tmp_path / "g.mtx"

@@ -5,9 +5,9 @@ Bounded sizes keep the sweep fast on the CPU backend."""
 import numpy as np
 import pytest
 
-from pangulu_tpu.api import InitOptions, finalize, gssv, init
-from pangulu_tpu.models import random_unsymmetric, smallworld
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, finalize, gssv, init
+from pangulu_jax.models import random_unsymmetric, smallworld
+from pangulu_jax.utils.perf import residual_norm
 
 TOL = {"r32": 1e-6, "r64": 1e-10, "cr32": 1e-6, "cr64": 1e-10}
 # r32/cr32 approach f64 accuracy through iterative refinement (observed
@@ -49,7 +49,7 @@ def _campaign_config(seed: int):
     24-config on-chip campaign (BASELINE.md round-1): random family,
     size, density, dtype, nb and ordering, everything else on auto so
     the auto-dispatch/ordering interplay is what gets exercised."""
-    from pangulu_tpu.models import (arrowhead, circuit, poisson2d,
+    from pangulu_jax.models import (arrowhead, circuit, poisson2d,
                                     random_unsymmetric, smallworld)
 
     rng = np.random.default_rng(1000 + seed)

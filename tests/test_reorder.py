@@ -4,9 +4,9 @@ orderings (reference has no tests; oracle = mathematical invariants)."""
 import numpy as np
 import scipy.sparse as sp
 
-from pangulu_tpu.models import arrowhead, poisson2d, trefethen
-from pangulu_tpu.reorder import fill_reducing_order, mc64_scale_and_match, reorder
-from pangulu_tpu.sparse import CscMatrix
+from pangulu_jax.models import arrowhead, poisson2d, trefethen
+from pangulu_jax.reorder import fill_reducing_order, mc64_scale_and_match, reorder
+from pangulu_jax.sparse import CscMatrix
 
 
 def test_matching_puts_large_entries_on_diagonal():
@@ -75,15 +75,15 @@ def test_reorder_roundtrip_transforms():
 
 
 def test_nested_dissection_ordering():
-    from pangulu_tpu.reorder.fill_reducing import fill_reducing_order
+    from pangulu_jax.reorder.fill_reducing import fill_reducing_order
 
     for a in (poisson2d(20), arrowhead(150)):
         p = fill_reducing_order(a, method="nd")
         assert sorted(p) == list(range(a.n))  # a permutation
 
     # end-to-end correctness under nd
-    from pangulu_tpu.api import InitOptions, gssv, init
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.api import InitOptions, gssv, init
+    from pangulu_jax.utils.perf import residual_norm
 
     a = poisson2d(15)
     b = np.asarray(a.to_scipy() @ np.ones(a.n))
@@ -96,10 +96,10 @@ def test_native_ndorder_valid_and_quality():
     """Native multilevel ND: valid permutation; on an irregular
     small-world graph it must clearly beat RCM's fill (the reference's
     METIS_NodeND role for its target matrix class)."""
-    from pangulu_tpu import native
-    from pangulu_tpu.models import smallworld
-    from pangulu_tpu.sparse import CscMatrix, symmetrize_pattern
-    from pangulu_tpu.symbolic import symbolic
+    from pangulu_jax import native
+    from pangulu_jax.models import smallworld
+    from pangulu_jax.sparse import CscMatrix, symmetrize_pattern
+    from pangulu_jax.symbolic import symbolic
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -126,10 +126,10 @@ def test_native_ndorder_valid_and_quality():
 
 
 def test_ndorder_solves_end_to_end():
-    from pangulu_tpu.api import InitOptions, gssv, finalize, init
-    from pangulu_tpu.io.mmio import generated_rhs
-    from pangulu_tpu.models import smallworld
-    from pangulu_tpu.utils.perf import residual_norm
+    from pangulu_jax.api import InitOptions, gssv, finalize, init
+    from pangulu_jax.io.mmio import generated_rhs
+    from pangulu_jax.models import smallworld
+    from pangulu_jax.utils.perf import residual_norm
 
     a = smallworld(20)
     b = generated_rhs(a)
@@ -145,9 +145,9 @@ def test_mindeg_dense_phase_terminates():
     round 2)."""
     import time
 
-    from pangulu_tpu import native
-    from pangulu_tpu.models import smallworld
-    from pangulu_tpu.sparse import symmetrize_pattern
+    from pangulu_jax import native
+    from pangulu_jax.models import smallworld
+    from pangulu_jax.sparse import symmetrize_pattern
 
     if native.get_lib() is None:
         import pytest

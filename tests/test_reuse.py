@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from pangulu_tpu.api import InitOptions, gstrf, gstrs, init, update_values
-from pangulu_tpu.io.checkpoint import load_factor, save_factor
-from pangulu_tpu.models import poisson2d, random_unsymmetric
-from pangulu_tpu.utils.perf import residual_norm
+from pangulu_jax.api import InitOptions, gstrf, gstrs, init, update_values
+from pangulu_jax.io.checkpoint import load_factor, save_factor
+from pangulu_jax.models import poisson2d, random_unsymmetric
+from pangulu_jax.utils.perf import residual_norm
 
 
 def test_update_values_same_pattern():
@@ -73,8 +73,8 @@ def test_checkpoint_requires_factor(tmp_path):
 
 
 def test_refactorize_drops_stale_solver_state():
-    """gstrf must invalidate the cached triangular solver: the Pallas
-    solve path reads triangle inverses persisted by the factorization,
+    """gstrf must invalidate the cached triangular solver: the solver
+    caches triangle inverses of the factorization it first saw,
     and reusing the previous factorization's inverses would corrupt
     solves after update_values + gstrf."""
     a = random_unsymmetric(60, 0.08, seed=21)
@@ -105,7 +105,7 @@ def test_update_values_complex_embed_missing_diagonal():
     s = s.tocsc()
     s.eliminate_zeros()
     s.data = s.data.real.astype(np.complex128)  # imag exactly zero
-    from pangulu_tpu.sparse import CscMatrix
+    from pangulu_jax.sparse import CscMatrix
 
     diag = s.diagonal()
     assert np.any(diag[np.array([3, 41, 77])] == 0)
@@ -136,7 +136,7 @@ def test_update_values_complex_embed_zero_structure():
     a = random_unsymmetric(120, 0.05, seed=5, dtype=np.complex128)
     s = a.to_scipy().tocsc()
     s.data = s.data.real.astype(np.complex128)  # imag exactly zero
-    from pangulu_tpu.sparse import CscMatrix, complex_embed_matrix
+    from pangulu_jax.sparse import CscMatrix, complex_embed_matrix
 
     ac = CscMatrix.from_scipy(s)
     assert complex_embed_matrix(ac).nnz == 4 * s.nnz

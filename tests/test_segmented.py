@@ -3,12 +3,12 @@ skewed (mindeg-ordered) schedules."""
 
 import numpy as np
 
-from pangulu_tpu.blocks import tile_matrix
-from pangulu_tpu.models import poisson2d, random_unsymmetric
-from pangulu_tpu.numeric import LUFactorizer
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import build_schedule
-from pangulu_tpu.symbolic import symbolic
+from pangulu_jax.blocks import tile_matrix
+from pangulu_jax.models import poisson2d, random_unsymmetric
+from pangulu_jax.numeric import LUFactorizer
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import build_schedule
+from pangulu_jax.symbolic import symbolic
 
 
 def _blocked(a, nb, ordering):

@@ -6,14 +6,14 @@ seeding (pangulu_numeric.c:1054-1068)."""
 import numpy as np
 import pytest
 
-from pangulu_tpu.blocks import gather_factor, tile_matrix
-from pangulu_tpu.io.mmio import generated_rhs
-from pangulu_tpu.models import poisson2d, smallworld
-from pangulu_tpu.numeric import LUFactorizer
-from pangulu_tpu.reorder import reorder
-from pangulu_tpu.schedule import build_schedule
-from pangulu_tpu.symbolic import symbolic
-from pangulu_tpu.utils.perf import factorization_residual
+from pangulu_jax.blocks import gather_factor, tile_matrix
+from pangulu_jax.io.mmio import generated_rhs
+from pangulu_jax.models import poisson2d, smallworld
+from pangulu_jax.numeric import LUFactorizer
+from pangulu_jax.reorder import reorder
+from pangulu_jax.schedule import build_schedule
+from pangulu_jax.symbolic import symbolic
+from pangulu_jax.utils.perf import factorization_residual
 
 
 def _problem(a, nb, ordering):
@@ -84,9 +84,8 @@ def test_superfused_end_to_end_residual():
 
 def test_auto_never_picks_superfused():
     """superfused is explicitly-requested only: measured slower than
-    fused on CPU and mega on TPU (padding outweighs the amortized
-    fixed costs at XLA level); the super-level ANALYSIS feeds the
-    future batched-diag mega variant."""
+    fused on the CPU backend (padding outweighs the amortized fixed
+    costs at XLA level)."""
     a = smallworld(24)
     ro, blocked, schedule = _problem(a, 16, "nd")
     fac = LUFactorizer(blocked, schedule)

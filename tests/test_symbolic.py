@@ -5,9 +5,9 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pangulu_tpu.models import poisson2d, trefethen
-from pangulu_tpu.sparse import CscMatrix
-from pangulu_tpu.symbolic import elimination_tree, symbolic
+from pangulu_jax.models import poisson2d, trefethen
+from pangulu_jax.sparse import CscMatrix
+from pangulu_jax.symbolic import elimination_tree, symbolic
 
 
 def _true_fill_blocks(a, nb):
@@ -41,7 +41,7 @@ def test_block_symbolic_superset_of_scalar():
 
 def test_etree_parent_ordering():
     a = poisson2d(6)
-    from pangulu_tpu.sparse import symmetrize_pattern
+    from pangulu_jax.sparse import symmetrize_pattern
 
     parent = elimination_tree(symmetrize_pattern(a))
     n = a.n
@@ -59,7 +59,7 @@ def test_symbolic_nnz_matches_dense_bound():
 def _dense_fill_flops_and_nnz(a):
     """Oracle: dense simulation of symbolic elimination on the
     symmetrized pattern; returns (exact LU flops, |L|+|U| nnz)."""
-    from pangulu_tpu.sparse import symmetrize_pattern
+    from pangulu_jax.sparse import symmetrize_pattern
 
     p = symmetrize_pattern(a).toarray() != 0
     n = p.shape[0]
@@ -84,9 +84,9 @@ def test_sparse_flops_exact():
 
 def test_sparse_flops_python_native_agree():
     """Native fill_walk_counts and the pure-Python walk must agree."""
-    from pangulu_tpu import native
-    from pangulu_tpu.sparse import symmetrize_pattern
-    from pangulu_tpu.symbolic import _fill_walk, elimination_tree
+    from pangulu_jax import native
+    from pangulu_jax.sparse import symmetrize_pattern
+    from pangulu_jax.symbolic import _fill_walk, elimination_tree
 
     if native.get_lib() is None:
         import pytest

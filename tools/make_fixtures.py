@@ -17,8 +17,8 @@ OUT = os.path.join(HERE, os.pardir, "tests", "fixtures")
 
 
 def _save(name, a):
-    from pangulu_tpu.io.mmio import write_matrix
-    from pangulu_tpu.sparse import CscMatrix
+    from pangulu_jax.io.mmio import write_matrix
+    from pangulu_jax.sparse import CscMatrix
 
     path = os.path.join(OUT, name + ".npz")
     write_matrix(path, CscMatrix.from_scipy(sp.csc_matrix(a)))
@@ -28,7 +28,7 @@ def _save(name, a):
 def circuit_like():
     """Modified-nodal-analysis-class: pattern unsymmetric, structurally
     zero diagonals, ~8-decade value spread (memplus/rajat class)."""
-    from pangulu_tpu.models import circuit
+    from pangulu_jax.models import circuit
 
     return circuit(2000, seed=11).to_scipy()
 
@@ -41,7 +41,7 @@ def stiff_transport():
     rng = np.random.default_rng(42)
     nx = 38
     n = nx * nx
-    from pangulu_tpu.models import poisson2d
+    from pangulu_jax.models import poisson2d
 
     a = poisson2d(nx).to_scipy().tolil()
     # one-sided convection: couple each node to a node 2..5 ahead
@@ -59,7 +59,7 @@ def powergrid_like():
     6 decades (power-network class, pattern unsymmetric via directed
     controller rows)."""
     rng = np.random.default_rng(7)
-    from pangulu_tpu.models import smallworld
+    from pangulu_jax.models import smallworld
 
     a = smallworld(45, long_range=0.08, seed=7).to_scipy().tolil()
     n = a.shape[0]
